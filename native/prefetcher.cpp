@@ -3,7 +3,7 @@
 // The native data-loader of the framework: worker threads read + decode
 // frames (PNG via png_decode.cpp, PGM natively) ahead of the consumer into
 // a bounded ring of reusable float32 buffers, so host-side decode overlaps
-// TPU compute. This is the TPU-era counterpart of the reference's
+// device compute. This is the accelerator-side counterpart of the reference's
 // synchronous `cap >> image` in the hot loop (reference src/vslam.cpp:54),
 // which stalled the pipeline on every frame.
 //

@@ -1,4 +1,4 @@
-// Host-side 2D spatial index for vslam_tpu.
+// Host-side 2D spatial index for vslam_jax.
 //
 // Capability parity with the reference's KDTree (reference src/KDTree.cpp,
 // include/KDTree.h) — arena-allocated median-split k-d tree with exact
@@ -6,8 +6,8 @@
 // declared but never implemented (KDTree.h:74-77) — plus a uniform grid
 // index, which is the better structure at SLAM's point counts.
 //
-// On the TPU the equivalent queries are batched dense kernels
-// (vslam_tpu/matching, SURVEY.md §2 C5 note); this native index serves the
+// On the device the equivalent queries are batched dense kernels
+// (vslam_jax/matching, SURVEY.md §2 C5 note); this native index serves the
 // host-side paths: dataset preprocessing, viz picking, and CPU fallback.
 //
 // Exposed through a plain C API for ctypes (no pybind11 in this image).

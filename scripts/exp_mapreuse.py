@@ -22,8 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def run_one(cfg, frames, poses, seed, enable_ba=True, label=""):
     import numpy as np
-    from vslam_tpu.pipeline import slam
-    from vslam_tpu.utils import evaluate
+    from vslam_jax.pipeline import slam
+    from vslam_jax.utils import evaluate
 
     s = slam.SLAMSystem(cfg, seed=seed, enable_ba=enable_ba)
     t0 = time.perf_counter()
@@ -66,9 +66,11 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from vslam_jax.utils import runtime
+    runtime.enable_compile_cache()
     import numpy as np
-    from vslam_tpu.config import small_config
-    from vslam_tpu.datasets import synthetic
+    from vslam_jax.config import small_config
+    from vslam_jax.datasets import synthetic
 
     cfg = small_config()
     cfg = cfg.replace(

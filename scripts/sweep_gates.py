@@ -23,8 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def run_case(cfg, scenes, seed=7):
     import jax
     import numpy as np
-    from vslam_tpu.pipeline import slam
-    from vslam_tpu.utils import evaluate
+    from vslam_jax.pipeline import slam
+    from vslam_jax.utils import evaluate
 
     # every case is a distinct static config -> a fresh set of compiled
     # programs; without clearing, ~20 cases of compile cache exhaust host
@@ -60,9 +60,11 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from vslam_jax.utils import runtime
+    runtime.enable_compile_cache()
     import numpy as np
-    from vslam_tpu.config import small_config
-    from vslam_tpu.datasets import synthetic
+    from vslam_jax.config import small_config
+    from vslam_jax.datasets import synthetic
 
     os.makedirs(args.out, exist_ok=True)
     base = small_config()

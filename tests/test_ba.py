@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vslam_tpu.config import BAConfig
-from vslam_tpu.core import lie
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.optimizer import ba
+from vslam_jax.config import BAConfig
+from vslam_jax.core import lie
+from vslam_jax.datasets import synthetic
+from vslam_jax.optimizer import ba
 
 K = np.array([[300.0, 0, 160.0], [0, 300.0, 120.0], [0, 0, 1.0]], np.float32)
 W, H = 320, 240

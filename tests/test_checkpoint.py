@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.pipeline import slam
-from vslam_tpu.utils import checkpoint
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.pipeline import slam
+from vslam_jax.utils import checkpoint
 
 CFG = small_config()
 K = CFG.camera.K()

@@ -1,8 +1,8 @@
 """CLI configuration assembly (VERDICT weak #4: precedence bug)."""
 import argparse
 
-from vslam_tpu.cli import _build_cfg
-from vslam_tpu.config import CameraConfig, VSLAMConfig
+from vslam_jax.cli import _build_cfg
+from vslam_jax.config import CameraConfig, VSLAMConfig
 
 
 def _args(**kw):
@@ -36,7 +36,7 @@ def test_stream_viewer(tmp_path):
     the final cloud; compaction triggers a reset record."""
     import json
     import numpy as np
-    from vslam_tpu.viz.stream import MapStream
+    from vslam_jax.viz.stream import MapStream
 
     out = str(tmp_path)
     st = MapStream(out)

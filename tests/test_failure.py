@@ -23,10 +23,10 @@ import time
 import numpy as np
 import pytest
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.pipeline import slam
-from vslam_tpu.utils import checkpoint
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.pipeline import slam
+from vslam_jax.utils import checkpoint
 
 CFG = small_config()
 K = CFG.camera.K()
@@ -83,8 +83,8 @@ class TestKillResumeMidBA:
             jax.config.update("jax_platforms", "cpu")
             sys.path.insert(0, sys.argv[1] + "/tests")
             from test_failure import _frames, CFG
-            from vslam_tpu.pipeline import slam
-            from vslam_tpu.utils import checkpoint
+            from vslam_jax.pipeline import slam
+            from vslam_jax.utils import checkpoint
             frames, _ = _frames(16)
             s = slam.SLAMSystem(CFG, seed=7)
             for i in range(16):

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vslam_tpu.config import FrontendConfig, MatchingConfig
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.frontend import frame as frame_mod
-from vslam_tpu.frontend.descriptors import pack_bits, unpack_bits
-from vslam_tpu.matching import hamming, matcher
+from vslam_jax.config import FrontendConfig, MatchingConfig
+from vslam_jax.datasets import synthetic
+from vslam_jax.frontend import frame as frame_mod
+from vslam_jax.frontend.descriptors import pack_bits, unpack_bits
+from vslam_jax.matching import hamming, matcher
 
 W, H = 256, 192
 K = np.array([[200.0, 0, 128.0], [0, 200.0, 96.0], [0, 0, 1.0]], np.float32)
@@ -113,7 +113,7 @@ class TestOrientation:
     def test_dense_map_matches_gather_oracle(self):
         """Dense (square-window) orientation tracks the gather-based
         intensity-centroid oracle at strong-gradient pixels."""
-        from vslam_tpu.frontend import descriptors
+        from vslam_jax.frontend import descriptors
         rng = np.random.RandomState(3)
         img = jnp.asarray(np.cumsum(np.cumsum(
             rng.randn(H, W).astype(np.float32), 0), 1) / 50.0)
@@ -129,7 +129,7 @@ class TestOrientation:
     def test_dense_map_90deg_equivariance(self):
         """Rotating the image by 90 deg rotates the dense orientation map by
         90 deg exactly (square window is symmetric under k*90)."""
-        from vslam_tpu.frontend import descriptors
+        from vslam_jax.frontend import descriptors
         rng = np.random.RandomState(4)
         img = np.cumsum(np.cumsum(rng.randn(128, 128).astype(np.float32), 0), 1)
         a0 = np.asarray(descriptors.orientation_map(jnp.asarray(img), 15))
@@ -150,9 +150,9 @@ class TestTrackCarry:
         dropped, and responseless predictions (background) don't produce
         keypoints."""
         import dataclasses
-        from vslam_tpu.config import small_config
-        from vslam_tpu.datasets import synthetic
-        from vslam_tpu.frontend import features
+        from vslam_jax.config import small_config
+        from vslam_jax.datasets import synthetic
+        from vslam_jax.frontend import features
 
         cfg = small_config().frontend
         K = small_config().camera.K()
@@ -196,9 +196,9 @@ class TestTrackCarry:
     def test_tracker_runs_with_carry_enabled(self):
         """track_step with track_carry on: tracks a short sequence."""
         import dataclasses
-        from vslam_tpu.config import small_config
-        from vslam_tpu.datasets import synthetic
-        from vslam_tpu.pipeline import tracker
+        from vslam_jax.config import small_config
+        from vslam_jax.datasets import synthetic
+        from vslam_jax.pipeline import tracker
 
         cfg = small_config()
         cfg = cfg.replace(frontend=dataclasses.replace(

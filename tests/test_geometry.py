@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vslam_tpu.core import lie
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.geometry import epipolar, ransac, triangulation
+from vslam_jax.core import lie
+from vslam_jax.datasets import synthetic
+from vslam_jax.geometry import epipolar, ransac, triangulation
 
 
 def _two_view_setup(seed=0, noise=0.0, n_points=300, outlier_frac=0.0):
@@ -83,7 +83,7 @@ class TestEightPoint:
         err = min(np.abs(F_svd - F_true).max(), np.abs(F_svd + F_true).max())
         assert err < 1e-4, err
 
-        # TPU hot path (Jacobi + Rayleigh-Ritz null vector): this minimal
+        # hot path (Jacobi + Rayleigh-Ritz null vector): this minimal
         # sample is near-degenerate (sigma_8 ~ 1e-2), so f32 normal-equation
         # formation alone bounds entrywise accuracy near 1e-3 — what matters
         # for RANSAC is the epipolar residual the model induces, which must
@@ -159,7 +159,7 @@ class TestRecoverPose:
 class TestTriangulation:
     def test_recovers_3d_points(self):
         K, T1, T2, uv1, uv2, vis, xyz, _ = _two_view_setup(noise=0.0)
-        from vslam_tpu.core import camera as cam
+        from vslam_jax.core import camera as cam
         P1 = np.asarray(cam.projection_matrix(jnp.asarray(K), jnp.asarray(T1)))
         P2 = np.asarray(cam.projection_matrix(jnp.asarray(K), jnp.asarray(T2)))
         X, w = triangulation.triangulate_dlt(
@@ -171,7 +171,7 @@ class TestTriangulation:
 
     def test_gate_rejects_bad(self):
         K, T1, T2, uv1, uv2, vis, xyz, _ = _two_view_setup(noise=0.0)
-        from vslam_tpu.core import camera as cam
+        from vslam_jax.core import camera as cam
         P1 = cam.projection_matrix(jnp.asarray(K), jnp.asarray(T1))
         P2 = cam.projection_matrix(jnp.asarray(K), jnp.asarray(T2))
         # corrupt half the uv2 observations

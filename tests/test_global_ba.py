@@ -27,8 +27,8 @@ def test_global_ba_covers_sequence_with_zero_truncation():
     import dataclasses
 
     import numpy as np
-    from vslam_tpu.datasets import synthetic
-    from vslam_tpu.pipeline import slam
+    from vslam_jax.datasets import synthetic
+    from vslam_jax.pipeline import slam
     from tests.test_slam import CFG, K, W, H
 
     # Window cap lowered so the sequence's unique-landmark count exceeds it

@@ -22,12 +22,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.optimizer.ba import BAProblem
-from vslam_tpu.pipeline import tracker
-from vslam_tpu.pipeline.keyframes import WindowProblem
-from vslam_tpu.pipeline.slam import SLAMSystem
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.optimizer.ba import BAProblem
+from vslam_jax.pipeline import tracker
+from vslam_jax.pipeline.keyframes import WindowProblem
+from vslam_jax.pipeline.slam import SLAMSystem
 
 CFG = small_config()
 

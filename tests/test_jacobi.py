@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vslam_tpu.ops import jacobi
+from vslam_jax.ops import jacobi
 
 
 def _rand_sym(rng, b, n):

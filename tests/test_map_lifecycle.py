@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from vslam_tpu.core.types import empty_map
-from vslam_tpu.mapping import point_map
+from vslam_jax.core.types import empty_map
+from vslam_jax.mapping import point_map
 
 
 def _filled_map(c=64, k=2, n=40, seed=0):
@@ -100,9 +100,9 @@ def test_slam_system_bounded_map_no_drops():
     """End-to-end: a tiny-capacity map forces maintenance mid-run; tracking
     keeps working, zero dropped inserts, map stays within capacity."""
     import dataclasses
-    from vslam_tpu.config import MapConfig, small_config
-    from vslam_tpu.datasets import synthetic
-    from vslam_tpu.pipeline.slam import SLAMSystem
+    from vslam_jax.config import MapConfig, small_config
+    from vslam_jax.datasets import synthetic
+    from vslam_jax.pipeline.slam import SLAMSystem
 
     # Capacity sized so maintenance triggers mid-run AND the no-drop
     # contract is satisfiable: the zero-drop guarantee requires the

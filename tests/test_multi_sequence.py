@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.parallel import mesh as mesh_mod
-from vslam_tpu.parallel import multi_sequence
-from vslam_tpu.pipeline import tracker
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.parallel import mesh as mesh_mod
+from vslam_jax.parallel import multi_sequence
+from vslam_jax.pipeline import tracker
 
 CFG = small_config()
 K = CFG.camera.K()

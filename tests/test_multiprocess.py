@@ -26,7 +26,7 @@ _WORKER = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from vslam_tpu.parallel import multihost
+    from vslam_jax.parallel import multihost
 
     active = multihost.initialize()
     assert active, "multihost.initialize did not join the process group"
@@ -34,9 +34,9 @@ _WORKER = textwrap.dedent("""
     assert jax.device_count() == 4, jax.device_count()   # 2 per process
 
     import jax.numpy as jnp
-    from vslam_tpu.config import BAConfig
-    from vslam_tpu.optimizer import ba
-    from vslam_tpu.parallel import sharded_ba
+    from vslam_jax.config import BAConfig
+    from vslam_jax.optimizer import ba
+    from vslam_jax.parallel import sharded_ba
     from jax.sharding import Mesh
 
     sys.path.insert(0, os.environ["VSLAM_TEST_DIR"])
@@ -67,8 +67,8 @@ _WORKER = textwrap.dedent("""
 def _make_problem(n_cams=4, n_pts=64, k_obs=4, seed=0):
     """Deterministic tiny BA problem every process builds identically."""
     import jax.numpy as jnp
-    from vslam_tpu.datasets import synthetic
-    from vslam_tpu.optimizer import ba
+    from vslam_jax.datasets import synthetic
+    from vslam_jax.optimizer import ba
 
     rng = np.random.RandomState(seed)
     K = np.array([[200.0, 0, 64], [0, 200.0, 48], [0, 0, 1]], np.float32)

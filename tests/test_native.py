@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 try:
-    from vslam_tpu.utils import native
+    from vslam_jax.utils import native
     native.load()
     HAVE_NATIVE = True
 except Exception:   # pragma: no cover - toolchain-less environments

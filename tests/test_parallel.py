@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vslam_tpu.config import BAConfig
-from vslam_tpu.optimizer import ba
-from vslam_tpu.parallel import mesh as mesh_mod
-from vslam_tpu.parallel import sharded_ba, sharded_ransac
+from vslam_jax.config import BAConfig
+from vslam_jax.optimizer import ba
+from vslam_jax.parallel import mesh as mesh_mod
+from vslam_jax.parallel import sharded_ba, sharded_ransac
 from tests.test_geometry import _two_view_setup
 from tests.test_ba import _make_problem, K as BA_K
 
@@ -50,7 +50,7 @@ class TestShardedRansac:
         import functools
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
-        from vslam_tpu.geometry import ransac as ransac_mod
+        from vslam_jax.geometry import ransac as ransac_mod
 
         K, T1, T2, uv1, uv2, vis, _, is_out = _two_view_setup(
             noise=0.3, outlier_frac=0.3
@@ -86,8 +86,8 @@ class TestShardedRansac:
 
 class TestShardedMap:
     def _populated_map(self, capacity=1024, n_pts=700, seed=0):
-        from vslam_tpu.core.types import empty_map
-        from vslam_tpu.mapping import point_map
+        from vslam_jax.core.types import empty_map
+        from vslam_jax.mapping import point_map
 
         rng = np.random.RandomState(seed)
         m = empty_map(capacity, 2)
@@ -104,9 +104,9 @@ class TestShardedMap:
         return m, xyz, desc, rng
 
     def test_associate_parity_with_single_device(self, mesh8):
-        from vslam_tpu.config import MapConfig, MatchingConfig
-        from vslam_tpu.mapping import point_map
-        from vslam_tpu.parallel import sharded_map
+        from vslam_jax.config import MapConfig, MatchingConfig
+        from vslam_jax.mapping import point_map
+        from vslam_jax.parallel import sharded_map
 
         m, xyz, desc, rng = self._populated_map()
         W, H = 640, 480
@@ -143,8 +143,8 @@ class TestShardedMap:
     def test_sharded_insert_preserves_sharding(self, mesh8):
         """insert_points under jit with a sharded map: XLA's sharding
         propagation keeps the point axis distributed (config-4 storage)."""
-        from vslam_tpu.mapping import point_map
-        from vslam_tpu.parallel import sharded_map
+        from vslam_jax.mapping import point_map
+        from vslam_jax.parallel import sharded_map
 
         m, _, _, rng = self._populated_map()
         ms = sharded_map.shard_map_state(mesh8, "shard", m)

@@ -12,9 +12,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.pipeline import slam
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.pipeline import slam
 
 pytestmark = pytest.mark.quick
 
@@ -88,7 +88,7 @@ class TestChunkedDriver:
         # compiled chunk (the zero-transfer endurance mode)
         import jax
         import jax.numpy as jnp
-        from vslam_tpu.datasets import synthetic_device
+        from vslam_jax.datasets import synthetic_device
 
         n = 12
         poses = synthetic.make_trajectory(n, step=0.6, seed=3)

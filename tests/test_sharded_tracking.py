@@ -31,10 +31,10 @@ import jax
 
 pytestmark = pytest.mark.slow  # multi-minute mesh runs
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.parallel import mesh as mesh_mod
-from vslam_tpu.pipeline import slam
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.parallel import mesh as mesh_mod
+from vslam_jax.pipeline import slam
 
 CFG = small_config()
 K = CFG.camera.K()
@@ -130,7 +130,7 @@ def test_sharded_tracking_through_maintenance():
 
 
 def test_cli_mesh_flag(tmp_path):
-    from vslam_tpu import cli
+    from vslam_jax import cli
     rc = cli.main([
         "run", "--synthetic", "--small", "--frames", "8", "--mesh", "2",
         "--seed", "3", "--out", str(tmp_path / "out"), "--platform", "cpu",

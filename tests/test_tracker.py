@@ -1,6 +1,6 @@
 """End-to-end tracking tests on rendered synthetic sequences.
 
-The TPU analogue of the reference's (absent) integration tests: track a
+The analogue of the reference's (absent) integration tests: track a
 rendered sequence with exact ground truth and bound the Sim(3)-aligned ATE
 (SURVEY.md §4 'implications')."""
 import numpy as np
@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vslam_tpu.config import small_config
-from vslam_tpu.datasets import synthetic
-from vslam_tpu.pipeline import tracker
-from vslam_tpu.utils import evaluate
+from vslam_jax.config import small_config
+from vslam_jax.datasets import synthetic
+from vslam_jax.pipeline import tracker
+from vslam_jax.utils import evaluate
 
 CFG = small_config()
 K = CFG.camera.K()
